@@ -3,7 +3,7 @@
 The reference paper's 100M plot (results/100M_20.png) includes MCMC-FM;
 this benchmark trains batch Gibbs (or ALS) on Netflix-shaped synthetic
 data (480,189 users x 17,770 items, N train rows) entirely
-device-resident on ONE TPU chip, via the staged draw path
+device-resident on ONE GPU, via the staged draw path
 (learners.mcmc._staged_*: A scalar draws + w sweep / one program per
 factor block / C re-predict + eval) with row/column-tiled temps.
 
@@ -13,7 +13,6 @@ Usage: python scripts/bench_mcmc_big.py [rows] [K] [factor_block] [iters] [metho
 import os as _os
 import sys as _sys
 
-# the image ships no site-packages .pth for the repo: running
 # "python scripts/x.py" puts scripts/ (not the repo root) on
 # sys.path, so bootstrap the package path explicitly
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -41,9 +40,9 @@ def main() -> None:
 
     import resource
 
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.learners.base import FMConfig
-    from svbfm_tpu.learners.mcmc import ALSLearner, MCMCLearner
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.learners.base import FMConfig
+    from svbfm.learners.mcmc import ALSLearner, MCMCLearner
 
     D = train.num_features
     meta = DataMetaInfo.from_field_offsets(D, [0, NUM_USERS])
@@ -52,7 +51,7 @@ def main() -> None:
                    num_groups=meta.num_attr_groups, seed=7)
     cls = ALSLearner if method == "als" else MCMCLearner
     t0 = time.perf_counter()
-    from svbfm_tpu.data.dataset import SweepPlan
+    from svbfm.data.dataset import SweepPlan
     plan_path = f"/tmp/vb_big_plan_{rows}_11.npz"
     plan = None
     if _os.path.exists(plan_path):
@@ -75,7 +74,7 @@ def main() -> None:
     steady = wall / iters if iters <= 2 else (
         sum(h["time_learn"] for h in hist[1:]) / (len(hist) - 1))
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    from svbfm_tpu.utils.profiling import device_memory_stats
+    from svbfm.utils.profiling import device_memory_stats
     dm = device_memory_stats() or {}
     hbm = dm.get("peak_bytes_in_use", 0) / 2**30
     print(f"# {method} {rows} rows K={K} fb={fb}: {steady:.2f} s/iter steady "

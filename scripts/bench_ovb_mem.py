@@ -2,10 +2,9 @@
 vb_online operating mode: all chunks resident, one fused epoch program).
 
 Trains OVBFM on ML-10M-shaped synthetic data (71,567 users x 10,681
-items) and reports steady s/epoch — the round-3 baseline for this shape
-was 12.7 s/epoch at 10M rows / 50 chunks (PARITY_RUNS.md), vs batch VB's
-1.93 s/iter on the same rows; the gap is the cost of the reference's
-factor-sequential natural-gradient sweep per chunk
+items) and reports steady s/epoch.  An epoch costs more than a batch-VB
+sweep over the same rows because of the reference's factor-sequential
+natural-gradient sweep per chunk
 (fm_learn_vb_online_simultaneous.h:76-157 — Gauss-Seidel over factors is
 a stability requirement, see OVBLearner.__init__).
 
@@ -27,7 +26,7 @@ TEST_ROWS = 500_000
 
 
 def make_split(rows: int, seed: int = 11):
-    from svbfm_tpu.data.dataset import SparseDataset
+    from svbfm.data.dataset import SparseDataset
 
     rng = np.random.default_rng(seed)
     rank = 8
@@ -63,9 +62,9 @@ def main() -> None:
     print(f"# generated {rows} rows in {time.perf_counter()-t0:.0f} s",
           flush=True)
 
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.learners.base import FMConfig
-    from svbfm_tpu.learners.vb_online import OVBLearner
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.learners.base import FMConfig
+    from svbfm.learners.vb_online import OVBLearner
 
     D = train.num_features
     meta = DataMetaInfo.from_field_offsets(D, [0, NUM_USERS])

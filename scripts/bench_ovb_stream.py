@@ -18,7 +18,6 @@ fit in its 16 GB RAM; run with rows=263000000 for the full-scale claim).
 import os as _os
 import sys as _sys
 
-# the image ships no site-packages .pth for the repo: running
 # "python scripts/x.py" puts scripts/ (not the repo root) on
 # sys.path, so bootstrap the package path explicitly
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -31,8 +30,8 @@ import time
 
 import numpy as np
 
-from svbfm_tpu.data.binary import (_HEADER, DVECTOR_FILE_ID,  # noqa: E402
-                                   FMATRIX_FILE_ID)
+from svbfm.data.binary import (_HEADER, DVECTOR_FILE_ID,  # noqa: E402
+                               FMATRIX_FILE_ID)
 
 # (users, items, y_center, y_spread, y_min, y_max); sizes per paper Table 1
 SHAPES = {
@@ -100,12 +99,12 @@ def main() -> None:
 
     import resource
 
-    from svbfm_tpu.data.dataset import SparseDataset
-    from svbfm_tpu.data.libfm_text import COOData
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.data.stream import BinaryChunkReader
-    from svbfm_tpu.learners.base import FMConfig
-    from svbfm_tpu.learners.vb_online import OVBLearner
+    from svbfm.data.dataset import SparseDataset
+    from svbfm.data.libfm_text import COOData
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.data.stream import BinaryChunkReader
+    from svbfm.learners.base import FMConfig
+    from svbfm.learners.vb_online import OVBLearner
 
     D = users + items
     reader = BinaryChunkReader(prefix + ".x", prefix + ".y")
@@ -150,7 +149,7 @@ def main() -> None:
     state, hist = learner.run(state, num_iter=epochs, verbose=False)
     wall = time.perf_counter() - t0
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    from svbfm_tpu.utils.profiling import device_memory_stats
+    from svbfm.utils.profiling import device_memory_stats
     dm = device_memory_stats()
     hbm = ""
     if dm and dm.get("peak_bytes_in_use"):

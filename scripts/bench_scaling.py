@@ -6,17 +6,16 @@ unmodified on real multi-chip hardware (SURVEY §6: "linear examples/s
 scaling from 1 chip to >=2 hosts", a dimension the reference cannot
 measure at all — it is a single process, src/libfm/libfm.cpp).
 
-On this box there is ONE real TPU chip, so the default run uses a virtual
-CPU mesh (JAX_PLATFORMS=cpu + --xla_force_host_platform_device_count):
-that validates the sharded program and the harness, not absolute speed.
-On a real slice just run it as-is (devices come from jax.devices()).
+Devices come from jax.devices().  To check the sharded program and the
+harness without GPUs, run it on a virtual CPU mesh (the times are then
+the CPU backend's, not a device's):
+
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+      python scripts/bench_scaling.py
 
 Usage:
   python scripts/bench_scaling.py [rows] [K] [iters] [device_counts]
   device_counts: comma list, default "1,2,4,8" (clamped to available)
-Env:
-  SVBFM_SCALING_REAL=1  use whatever backend JAX picked (default forces
-                        the 8-device virtual CPU mesh for harness checks)
 """
 
 import os as _os
@@ -27,12 +26,6 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 import json
 import sys
 import time
-
-if not _os.environ.get("SVBFM_SCALING_REAL"):
-    flags = _os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        _os.environ["XLA_FLAGS"] = (
-            flags + " --xla_force_host_platform_device_count=8").strip()
 
 import numpy as np
 
@@ -45,17 +38,15 @@ def main() -> None:
               if len(sys.argv) > 4 else [1, 2, 4, 8])
 
     import jax
-    if not _os.environ.get("SVBFM_SCALING_REAL"):
-        jax.config.update("jax_platforms", "cpu")
     avail = len(jax.devices())
     counts = [c for c in counts if c <= avail]
 
-    from svbfm_tpu.data.dataset import SparseDataset
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-    from svbfm_tpu.learners.base import FMConfig
-    from svbfm_tpu.learners.vb import VBLearner
-    from svbfm_tpu.parallel.mesh import make_mesh
+    from svbfm.data.dataset import SparseDataset
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.data.synth import make_movielens_like, train_test_split
+    from svbfm.learners.base import FMConfig
+    from svbfm.learners.vb import VBLearner
+    from svbfm.parallel.mesh import make_mesh
 
     n_users = max(rows // 20, 16)
     n_items = max(rows // 40, 12)

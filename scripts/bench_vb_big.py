@@ -6,7 +6,7 @@ and at KDD scale only the online ones fit.  This benchmark trains batch
 VBFM (``-method vb``, dim 1,1,K) on Netflix-shaped synthetic data —
 480,189 users x 17,770 items, N train rows (default the full 100M: the
 training side of the Netflix prize set) — entirely device-resident on ONE
-TPU chip, using the memory-tiled chunk=1 sweep path.
+GPU, using the memory-tiled chunk=1 sweep path.
 
 Usage: python scripts/bench_vb_big.py [rows] [K] [factor_block] [iters]
 """
@@ -14,7 +14,6 @@ Usage: python scripts/bench_vb_big.py [rows] [K] [factor_block] [iters]
 import os as _os
 import sys as _sys
 
-# the image ships no site-packages .pth for the repo: running
 # "python scripts/x.py" puts scripts/ (not the repo root) on
 # sys.path, so bootstrap the package path explicitly
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -34,7 +33,7 @@ def make_split(rows: int, seed: int = 11):
     the padded [N, 2] row layout (no COO intermediate at 100M rows).
     Caches ids/targets under /tmp so retries skip the generation pass
     (vals are all 1.0 and never stored)."""
-    from svbfm_tpu.data.dataset import SparseDataset
+    from svbfm.data.dataset import SparseDataset
 
     cache = f"/tmp/vb_big_{rows}_{seed}"
 
@@ -101,9 +100,9 @@ def main() -> None:
 
     import resource
 
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.learners.base import FMConfig
-    from svbfm_tpu.learners.vb import VBLearner
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.learners.base import FMConfig
+    from svbfm.learners.vb import VBLearner
 
     D = train.num_features
     meta = DataMetaInfo.from_field_offsets(D, [0, NUM_USERS])
@@ -111,7 +110,7 @@ def main() -> None:
                    min_target=train.min_target, max_target=train.max_target,
                    num_groups=meta.num_attr_groups, seed=7)
     t0 = time.perf_counter()
-    from svbfm_tpu.data.dataset import SweepPlan
+    from svbfm.data.dataset import SweepPlan
     plan_path = f"/tmp/vb_big_plan_{rows}_11.npz"
     plan = None
     if _os.path.exists(plan_path):
@@ -133,7 +132,7 @@ def main() -> None:
     steady = wall / iters if iters <= 2 else (
         sum(h["time_learn"] for h in hist[1:]) / (len(hist) - 1))
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    from svbfm_tpu.utils.profiling import device_memory_stats
+    from svbfm.utils.profiling import device_memory_stats
     dm = device_memory_stats() or {}
     hbm = dm.get("peak_bytes_in_use", 0) / 2**30
     print(f"# {rows} rows K={K} fb={fb}: {steady:.2f} s/iter steady "

@@ -43,11 +43,11 @@ def main() -> None:
 
     import resource
 
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.learners.base import FMConfig
-    from svbfm_tpu.learners.mcmc_windowed import (WindowedALSLearner,
-                                                  WindowedMCMCLearner)
-    from svbfm_tpu.learners.vb_windowed import WindowedVBLearner
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.learners.base import FMConfig
+    from svbfm.learners.mcmc_windowed import (WindowedALSLearner,
+                                              WindowedMCMCLearner)
+    from svbfm.learners.vb_windowed import WindowedVBLearner
 
     D = train.num_features
     meta = DataMetaInfo.from_field_offsets(D, [0, NUM_USERS])
@@ -86,7 +86,7 @@ def main() -> None:
     steady = (hist[-1]["time_learn"] if len(hist) > 1
               else wall / max(iters, 1))
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
-    from svbfm_tpu.utils.profiling import device_memory_stats
+    from svbfm.utils.profiling import device_memory_stats
     dm = device_memory_stats() or {}
     hbm = dm.get("peak_bytes_in_use", 0) / 2**30
     print(f"# windowed {method} {rows} rows K={K} fb={fb} "

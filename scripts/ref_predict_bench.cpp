@@ -13,7 +13,7 @@
 //   /tmp/ref_predict_bench [rows=10000000] [K=20]
 //
 // Emits: ref_predict rows/s over ML-1M-shaped 2-nnz rows (user+item
-// one-hots), the same workload bench_serve.py scores on TPU.
+// one-hots), the same workload bench_serve.py scores on the GPU.
 
 #include <cstdio>
 #include <cstdlib>

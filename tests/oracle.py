@@ -2,7 +2,7 @@
 
 Straightforward (slow) implementations of the update equations, written
 directly from the math: Gauss-Seidel column order 0..D-1, incremental
-residual maintenance.  Used to validate that the TPU binned sweeps are
+residual maintenance.  Used to validate that the binned sweeps are
 exactly equivalent on conflict-free data.
 """
 

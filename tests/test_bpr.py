@@ -5,12 +5,12 @@ w0 regularize-only, uniform negative sampling from the item field."""
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.bpr import BPRLearner
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.bpr import BPRLearner
+from svbfm.parallel.mesh import make_mesh
 
 
 def _setup(num_rows=4000, num_users=30, num_items=25, K=4, n_dev=1):
@@ -20,7 +20,7 @@ def _setup(num_rows=4000, num_users=30, num_items=25, K=4, n_dev=1):
     # implicit feedback: keep only above-median ratings as positives
     thr = np.median(coo.target)
     keep = coo.target > thr  # per ROW
-    from svbfm_tpu.data.libfm_text import COOData
+    from svbfm.data.libfm_text import COOData
     kept_rows = np.where(keep)[0]
     remap = np.full(coo.num_rows, -1, np.int64)
     remap[kept_rows] = np.arange(len(kept_rows))
@@ -66,13 +66,13 @@ def test_bpr_w0_never_moves_from_gradient():
 
 
 def test_bpr_cli(tmp_path):
-    from svbfm_tpu.data.libfm_text import save_libfm_text
+    from svbfm.data.libfm_text import save_libfm_text
     import os
     tr, te, D, meta, cfg = _setup()
     trf, tef = str(tmp_path / "tr.libfm"), str(tmp_path / "te.libfm")
     save_libfm_text(trf, tr)
     save_libfm_text(tef, te)
-    from svbfm_tpu.cli import main
+    from svbfm.cli import main
     old = os.getcwd()
     os.chdir(tmp_path)
     try:

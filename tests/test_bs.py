@@ -10,15 +10,15 @@ import dataclasses
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.libfm_text import COOData
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.relation import (RelationData, build_joined_meta,
-                                     join_relations)
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.mcmc import ALSLearner, MCMCLearner
-from svbfm_tpu.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.libfm_text import COOData
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.relation import (RelationData, build_joined_meta,
+                                 join_relations)
+from svbfm.learners.base import FMConfig
+from svbfm.learners.mcmc import ALSLearner, MCMCLearner
+from svbfm.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
+from svbfm.parallel.mesh import make_mesh
 
 from oracle import BinOrderALSOracle
 
@@ -99,7 +99,7 @@ def test_bs_als_matches_binorder_oracle():
     color[:d_main] = bs.plan.color[:d_main]
     nb = bs.plan.num_bins
     rplan_color = None
-    from svbfm_tpu.data.dataset import SweepPlan
+    from svbfm.data.dataset import SweepPlan
     rcoo = COOData(row=rel.row, col=rel.col, val=rel.val,
                    target=np.zeros(rel.num_rows, np.float32),
                    num_rows=rel.num_rows, num_features=rel.num_features)
@@ -173,7 +173,7 @@ def test_bs_never_materializes_the_join():
 
 def test_bs_classification():
     main, rel, items, meta, cfg, d_main = _setup(n=400)
-    from svbfm_tpu.learners.base import TASK_CLASSIFICATION
+    from svbfm.learners.base import TASK_CLASSIFICATION
     y = np.where(main.target > np.median(main.target), 1.0, -1.0)
     main.target = y.astype(np.float32)
     cfg = dataclasses.replace(cfg, task=TASK_CLASSIFICATION, min_target=-1,
@@ -202,7 +202,7 @@ def test_bs_blocked_als_matches_oracle(n_dev):
                       mesh=mesh, write_files=False)
     assert bs.cfg.factor_block == cfg.num_factor  # auto -> full block
 
-    from svbfm_tpu.data.dataset import SweepPlan
+    from svbfm.data.dataset import SweepPlan
     main_bins = [np.flatnonzero(bs.plan.color[:d_main] == b)
                  for b in range(bs.plan.num_bins)]
     rcoo = COOData(row=rel.row, col=rel.col, val=rel.val,
@@ -256,7 +256,7 @@ def test_bs_blocked_gibbs_matches_sequential_closely():
 def test_bs_nan_counters_surface(fb):
     """The BS draw surfaces the reference's nan/inf counters on BOTH factor
     paths (sequential fb=1 and blocked fb=K), all zero on a healthy run."""
-    from svbfm_tpu.learners.mcmc import NAN_FAMILIES
+    from svbfm.learners.mcmc import NAN_FAMILIES
 
     main, rel, items, meta, cfg, d_main = _setup()
     D = cfg.num_attributes

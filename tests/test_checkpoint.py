@@ -1,13 +1,13 @@
 import numpy as np
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.vb import VBLearner
-from svbfm_tpu.parallel.mesh import make_mesh
-from svbfm_tpu.utils.checkpoint import (CheckpointManager, load_checkpoint,
-                                        save_checkpoint)
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.vb import VBLearner
+from svbfm.parallel.mesh import make_mesh
+from svbfm.utils.checkpoint import (CheckpointManager, load_checkpoint,
+                                    save_checkpoint)
 
 
 def _learner(seed=2):
@@ -77,7 +77,7 @@ def _mcmc_cfg_data():
 
 
 def test_mcmc_resume_matches(tmp_path):
-    from svbfm_tpu.learners.mcmc import ALSLearner
+    from svbfm.learners.mcmc import ALSLearner
     cfg, tr, te, D, meta = _mcmc_cfg_data()
     mk = lambda: ALSLearner(cfg, SparseDataset.from_coo(tr, D),
                             SparseDataset.from_coo(te, D), meta,
@@ -98,7 +98,7 @@ def test_mcmc_resume_matches(tmp_path):
 def test_mcmc_sampling_resume_matches(tmp_path):
     """Gibbs sampling resume is bit-deterministic: the PRNG key rides in the
     checkpointed state, so a resumed chain equals the uninterrupted one."""
-    from svbfm_tpu.learners.mcmc import MCMCLearner
+    from svbfm.learners.mcmc import MCMCLearner
     cfg, tr, te, D, meta = _mcmc_cfg_data()
     mk = lambda: MCMCLearner(cfg, SparseDataset.from_coo(tr, D),
                              SparseDataset.from_coo(te, D), meta,
@@ -120,7 +120,7 @@ def test_bs_sampling_resume_matches(tmp_path):
     import sys, os, dataclasses
     sys.path.insert(0, os.path.dirname(__file__))
     from test_bs import _setup
-    from svbfm_tpu.learners.mcmc_bs import MCMCBSLearner
+    from svbfm.learners.mcmc_bs import MCMCBSLearner
     main, rel, items, meta, cfg, d_main = _setup()
     tr = SparseDataset.from_coo(main, cfg.num_attributes)
     mk = lambda: MCMCBSLearner(dataclasses.replace(cfg, factor_block=1),
@@ -142,7 +142,7 @@ def test_bs_sampling_resume_matches(tmp_path):
 def test_mcmc_final_predictions_posterior_mean():
     """Sampling MCMC final predictions use pred_sum_all/num_iter (the
     reference's predict(), fm_learn_mcmc.h:355-379), not the last sample."""
-    from svbfm_tpu.learners.mcmc import MCMCLearner
+    from svbfm.learners.mcmc import MCMCLearner
     cfg, tr, te, D, meta = _mcmc_cfg_data()
     l = MCMCLearner(cfg, SparseDataset.from_coo(tr, D),
                     SparseDataset.from_coo(te, D), meta,
@@ -160,8 +160,8 @@ def test_mcmc_final_predictions_posterior_mean():
 def test_sgd_family_resume(tmp_path):
     """Every SGD-family learner checkpoints and resumes to the exact state
     of an uninterrupted run (key chain rides in the state)."""
-    from svbfm_tpu.learners.sgd import SGDLearner, SGDALearner, SGDOnlineLearner
-    from svbfm_tpu.learners.exp_sgd import ExpSGDLearner
+    from svbfm.learners.sgd import SGDLearner, SGDALearner, SGDOnlineLearner
+    from svbfm.learners.exp_sgd import ExpSGDLearner
     coo = make_movielens_like(num_users=12, num_items=9, num_ratings=400,
                               rank=2, noise=0.4, seed=2)
     tr, te = train_test_split(coo, 0.25, seed=3)
@@ -204,7 +204,7 @@ def test_sgd_family_resume(tmp_path):
 
 
 def test_ovb_resume_matches(tmp_path):
-    from svbfm_tpu.learners.vb_online import OVBLearner
+    from svbfm.learners.vb_online import OVBLearner
     coo = make_movielens_like(num_users=12, num_items=9, num_ratings=400,
                               rank=2, noise=0.4, seed=2)
     tr, te = train_test_split(coo, 0.25, seed=3)

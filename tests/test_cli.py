@@ -3,8 +3,8 @@ import os
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.libfm_text import save_libfm_text
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
+from svbfm.data.libfm_text import save_libfm_text
+from svbfm.data.synth import make_movielens_like, train_test_split
 
 
 @pytest.fixture(scope="module")
@@ -24,7 +24,7 @@ def data_files(tmp_path_factory):
 
 
 def _run_cli(args, cwd):
-    from svbfm_tpu.cli import main
+    from svbfm.cli import main
     old = os.getcwd()
     os.chdir(cwd)
     try:
@@ -135,7 +135,7 @@ def test_cli_classification(data_files, tmp_path):
 
 
 def test_cli_help_and_errors(tmp_path):
-    from svbfm_tpu.cli import main
+    from svbfm.cli import main
     assert main(["-help"]) == 0
     with pytest.raises(SystemExit):
         main(["-task", "r", "-bogus", "1", "-train", "x", "-test", "y"])
@@ -144,7 +144,7 @@ def test_cli_help_and_errors(tmp_path):
 
 
 def test_map_at_k_reference_recurrence():
-    from svbfm_tpu.learners.base import map_at_k
+    from svbfm.learners.base import map_at_k
     # one user, items ranked [a(hit), b(miss), c(hit)]
     pred = np.array([3.0, 2.0, 1.0])
     users = np.array([7, 7, 7])
@@ -172,8 +172,8 @@ def test_cli_map_eval(data_files, tmp_path):
 
 
 def test_cli_binary_input(data_files, tmp_path):
-    from svbfm_tpu.data.binary import save_coo_binary
-    from svbfm_tpu.data.libfm_text import load_libfm_text
+    from svbfm.data.binary import save_coo_binary
+    from svbfm.data.libfm_text import load_libfm_text
     d, trf, tef, gf = data_files
     tr = load_libfm_text(trf)
     save_coo_binary(str(tmp_path / "trbin"), tr)
@@ -238,7 +238,7 @@ def test_cli_single_init(data_files, tmp_path, monkeypatch):
     """The CLI builds the learner state exactly once: the v_file.txt dump
     state is the state run() trains from (no double init — at 10M+ rows an
     init is a multi-minute cache pass)."""
-    from svbfm_tpu.learners.vb import VBLearner
+    from svbfm.learners.vb import VBLearner
 
     calls = []
     orig = VBLearner.init_state
@@ -333,8 +333,8 @@ def test_num_eval_cases_vb(data_files, tmp_path):
 def test_cli_cache_size_windowed_vb(data_files, tmp_path):
     """-cache_size trains batch VB out-of-core (HBM-windowed) from the
     reference binary format and matches the resident run's trajectory."""
-    from svbfm_tpu.data.binary import save_coo_binary
-    from svbfm_tpu.data.libfm_text import load_libfm_text
+    from svbfm.data.binary import save_coo_binary
+    from svbfm.data.libfm_text import load_libfm_text
     d, trf, tef, gf = data_files
     tr = load_libfm_text(trf)
     save_coo_binary(str(tmp_path / "trbin"), tr)
@@ -363,8 +363,8 @@ def test_cli_cache_size_windowed_mcmc(data_files, tmp_path, method):
     """-cache_size trains batch Gibbs/ALS out-of-core (HBM-windowed) from
     the reference binary format and matches the resident trajectory (the
     windowed learner mirrors the resident RNG key chain exactly)."""
-    from svbfm_tpu.data.binary import save_coo_binary
-    from svbfm_tpu.data.libfm_text import load_libfm_text
+    from svbfm.data.binary import save_coo_binary
+    from svbfm.data.libfm_text import load_libfm_text
     d, trf, tef, gf = data_files
     tr = load_libfm_text(trf)
     save_coo_binary(str(tmp_path / "trbin"), tr)

@@ -3,11 +3,11 @@ import tempfile
 
 import numpy as np
 
-from svbfm_tpu.data.binary import load_coo_binary, save_coo_binary
-from svbfm_tpu.data.dataset import SparseDataset, SweepPlan, detect_field_bins, assign_bins_greedy
-from svbfm_tpu.data.libfm_text import COOData, load_libfm_text, save_libfm_text
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, make_tiny, train_test_split
+from svbfm.data.binary import load_coo_binary, save_coo_binary
+from svbfm.data.dataset import SparseDataset, SweepPlan, detect_field_bins, assign_bins_greedy
+from svbfm.data.libfm_text import COOData, load_libfm_text, save_libfm_text
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, make_tiny, train_test_split
 
 
 def test_text_roundtrip(tmp_path):
@@ -149,7 +149,7 @@ def test_sweep_plan_save_load(tmp_path):
 def test_auto_bins_jacobi_fallback_warns(monkeypatch, capsys):
     """Above GREEDY_NNZ_CAP, bins=auto must fall back to Jacobi loudly and
     mark the plan non-conflict-free (no silent semantic change)."""
-    from svbfm_tpu.data import dataset as dsmod
+    from svbfm.data import dataset as dsmod
     rng = np.random.default_rng(1)
     N, D = 50, 12
     rows, cols, vals = [], [], []

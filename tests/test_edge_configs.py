@@ -2,14 +2,14 @@
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.mcmc import ALSLearner
-from svbfm_tpu.learners.sgd import SGDLearner
-from svbfm_tpu.learners.vb import VBLearner
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.mcmc import ALSLearner
+from svbfm.learners.sgd import SGDLearner
+from svbfm.learners.vb import VBLearner
+from svbfm.parallel.mesh import make_mesh
 
 
 def _data(seed=2):
@@ -21,9 +21,9 @@ def _data(seed=2):
     return tr, te, D, meta
 
 
-from svbfm_tpu.learners.exp_sgd import ExpSGDLearner, ExpSGDStocLearner
-from svbfm_tpu.learners.mcmc import MCMCLearner
-from svbfm_tpu.learners.vb_online import OVBLearner
+from svbfm.learners.exp_sgd import ExpSGDLearner, ExpSGDStocLearner
+from svbfm.learners.mcmc import MCMCLearner
+from svbfm.learners.vb_online import OVBLearner
 
 
 @pytest.mark.parametrize("k0,k1,K", [(True, True, 0), (False, False, 3),
@@ -56,9 +56,9 @@ def test_edge_dims_run_and_stay_finite(k0, k1, K, cls):
 def test_edge_dims_relational_bs(k0, k1, K):
     """K=0 / k0=0 / k1=0 on the native relational BS learners (per-factor
     caches and dim handling are branch-heavy there)."""
-    from svbfm_tpu.data.libfm_text import COOData
-    from svbfm_tpu.data.relation import RelationData, build_joined_meta
-    from svbfm_tpu.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
+    from svbfm.data.libfm_text import COOData
+    from svbfm.data.relation import RelationData, build_joined_meta
+    from svbfm.learners.mcmc_bs import ALSBSLearner, MCMCBSLearner
 
     rng = np.random.default_rng(4)
     n, n_users, n_items = 200, 11, 6

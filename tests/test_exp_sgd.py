@@ -1,11 +1,11 @@
 import numpy as np
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.exp_sgd import ExpSGDLearner, ExpSGDStocLearner
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.exp_sgd import ExpSGDLearner, ExpSGDStocLearner
+from svbfm.parallel.mesh import make_mesh
 
 
 def _setup(num_rows=2000, num_users=30, num_items=25, K=4, n_dev=1, seed=3,

@@ -12,12 +12,12 @@ import os
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.libfm_text import save_libfm_text
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig, MapEval, TASK_CLASSIFICATION
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.libfm_text import save_libfm_text
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig, MapEval, TASK_CLASSIFICATION
+from svbfm.parallel.mesh import make_mesh
 
 
 def _class_data(num_users=25, num_items=20, num_ratings=2500, seed=9):
@@ -59,7 +59,7 @@ def test_mcmc_per_iteration_map():
     cfg = FMConfig(num_attributes=D, num_factor=4, task=TASK_CLASSIFICATION,
                    min_target=-1.0, max_target=1.0,
                    num_groups=meta.num_attr_groups, seed=7)
-    from svbfm_tpu.learners.mcmc import MCMCLearner
+    from svbfm.learners.mcmc import MCMCLearner
     learner = MCMCLearner(cfg, SparseDataset.from_coo(tr, D),
                           SparseDataset.from_coo(te, D), meta,
                           mesh=make_mesh(2), write_files=False)
@@ -81,7 +81,7 @@ def test_ovb_map_written_to_trajectory_file(tmp_path):
     cfg = FMConfig(num_attributes=D, num_factor=4, task=TASK_CLASSIFICATION,
                    min_target=-1.0, max_target=1.0,
                    num_groups=meta.num_attr_groups, seed=7, num_batches=5)
-    from svbfm_tpu.learners.vb_online import OVBLearner
+    from svbfm.learners.vb_online import OVBLearner
     learner = OVBLearner(cfg, SparseDataset.from_coo(tr, D),
                          SparseDataset.from_coo(te, D), meta,
                          mesh=make_mesh(2), out_dir=str(tmp_path))
@@ -105,7 +105,7 @@ def test_cli_map_eval_per_iteration(tmp_path, capsys):
     with open(fixf, "w") as f:
         for u, i, y in zip(users, items, te.target):
             f.write(f"{1 if y > 0 else 0} {u}:1 {i}:1\n")
-    from svbfm_tpu.cli import main
+    from svbfm.cli import main
     old = os.getcwd()
     os.chdir(tmp_path)
     try:

@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig, TASK_CLASSIFICATION
-from svbfm_tpu.learners.mcmc import ALSLearner, MCMCLearner
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig, TASK_CLASSIFICATION
+from svbfm.learners.mcmc import ALSLearner, MCMCLearner
+from svbfm.parallel.mesh import make_mesh
 
 from oracle import ALSOracle, BinOrderALSOracle
 
@@ -144,7 +144,7 @@ def test_auto_factor_block_clamps_to_budget(monkeypatch):
     sweep bounds the temps instead and the pick falls to the largest
     divisor <= 4 (the empirically optimal staged block), or 1 when K has
     no such divisor."""
-    import svbfm_tpu.learners.mcmc as M
+    import svbfm.learners.mcmc as M
     tr, te, cfg, meta, mesh = _setup(K=6)
     D = cfg.num_attributes
     learner = MCMCLearner(cfg, SparseDataset.from_coo(tr, D),
@@ -192,8 +192,8 @@ def test_nan_counters_surface_and_count():
     import jax
     import jax.numpy as jnp
 
-    from svbfm_tpu.learners.mcmc import (_maybe_sample, NAN_FAMILIES,
-                                         zero_nan_counters)
+    from svbfm.learners.mcmc import (_maybe_sample, NAN_FAMILIES,
+                                     zero_nan_counters)
 
     # unit: reference guard order (fm_learn_mcmc.h:686-712) — a nan/inf
     # sigma^2 zeroes the draw BEFORE the counter check (uncounted), while a
@@ -241,8 +241,8 @@ def test_exact_block_draws_solve_matches_loop():
     loop fallback with the reference's per-factor revert semantics."""
     import jax
     import jax.numpy as jnp
-    from svbfm_tpu.learners.mcmc import exact_block_draws
-    from svbfm_tpu.learners.base import keep_finite
+    from svbfm.learners.mcmc import exact_block_draws
+    from svbfm.learners.base import keep_finite
 
     rng = np.random.default_rng(0)
     F, C = 6, 17
@@ -318,7 +318,7 @@ def test_mcmc_staged_path_matches_fused(monkeypatch):
     block / C: re-predict + eval) replays the fused blocked path's exact
     draw/key sequence, so trajectories must match bitwise-closely —
     staging is a pure execution-schedule transform."""
-    import svbfm_tpu.learners.mcmc as M
+    import svbfm.learners.mcmc as M
 
     tr, te, cfg, meta, mesh = _setup(num_rows=600, num_users=18,
                                      num_items=14, K=4, factor_block=2)
@@ -357,7 +357,7 @@ def test_mcmc_staged_path_matches_fused(monkeypatch):
 def test_als_staged_path_matches_fused(monkeypatch):
     """Deterministic ALS through the staged split (no sampling noise, so
     any drift is a real semantics bug)."""
-    import svbfm_tpu.learners.mcmc as M
+    import svbfm.learners.mcmc as M
 
     tr, te, cfg, meta, mesh = _setup(num_rows=600, num_users=18,
                                      num_items=14, K=4, factor_block=2,
@@ -386,8 +386,8 @@ def test_mcmc_tiled_sweep_matches_untiled(monkeypatch):
     quantum-padded row count it must reproduce the untiled trajectory
     exactly, and the _needs_tiling predicate must agree with the kernel's
     tile counts (it forces chunk=1, dodging the nested-scan miscompile)."""
-    import svbfm_tpu.learners.base as basemod
-    import svbfm_tpu.learners.mcmc as M
+    import svbfm.learners.base as basemod
+    import svbfm.learners.mcmc as M
 
     tr, te, cfg, meta, mesh = _setup(num_rows=3000, num_users=40,
                                      num_items=30, K=4)
@@ -409,7 +409,7 @@ def test_mcmc_tiled_sweep_matches_untiled(monkeypatch):
     n_loc = tl.train_row.ids.shape[0]
     assert n_loc == basemod.ROW_QUANTUM  # quantum padding engaged
     assert M._mc_row_tiles(n_loc, 4 * 4) > 1
-    from svbfm_tpu.learners.vb import _exact_tile_len
+    from svbfm.learners.vb import _exact_tile_len
     assert _exact_tile_len(n_loc, M._mc_row_tiles(n_loc, 4 * 4)) is not None
     assert tl._needs_tiling() is True
     _, hist_tl = tl.run(num_iter=3, verbose=False)

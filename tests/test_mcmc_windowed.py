@@ -9,14 +9,14 @@ splits each column's occurrence-list reduction)."""
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig, TASK_CLASSIFICATION
-from svbfm_tpu.learners.mcmc import ALSLearner, MCMCLearner
-from svbfm_tpu.learners.mcmc_windowed import (WindowedALSLearner,
-                                              WindowedMCMCLearner)
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig, TASK_CLASSIFICATION
+from svbfm.learners.mcmc import ALSLearner, MCMCLearner
+from svbfm.learners.mcmc_windowed import (WindowedALSLearner,
+                                          WindowedMCMCLearner)
+from svbfm.parallel.mesh import make_mesh
 
 
 def _setup(num_rows=3000, num_users=40, num_items=30, K=4, task=0, **kw):
@@ -75,8 +75,8 @@ def test_windowed_classification():
 def test_windowed_from_binary_reader(tmp_path):
     """End-to-end through the reference binary format: write .x/.y, stream
     windows with BinaryChunkReader, match the resident ALS trajectory."""
-    from svbfm_tpu.data.binary import save_dvector_binary, save_sparse_binary
-    from svbfm_tpu.data.stream import BinaryChunkReader
+    from svbfm.data.binary import save_dvector_binary, save_sparse_binary
+    from svbfm.data.stream import BinaryChunkReader
 
     tr, te, D, meta, cfg = _setup(K=4, factor_block=2)
     x_path, y_path = str(tmp_path / "tr.x"), str(tmp_path / "tr.y")

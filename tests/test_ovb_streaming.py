@@ -8,15 +8,15 @@ the in-memory learner and exercise resume.
 
 import numpy as np
 
-from svbfm_tpu.data.binary import save_coo_binary
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.stream import BinaryChunkReader
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.vb_online import OVBLearner
-from svbfm_tpu.parallel.mesh import make_mesh
-from svbfm_tpu.utils.checkpoint import CheckpointManager
+from svbfm.data.binary import save_coo_binary
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.stream import BinaryChunkReader
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.vb_online import OVBLearner
+from svbfm.parallel.mesh import make_mesh
+from svbfm.utils.checkpoint import CheckpointManager
 
 
 def _setup(tmp_path, num_batches, seed=2):
@@ -93,7 +93,7 @@ def test_streaming_classification(tmp_path):
     tr, te = train_test_split(coo, 0.2, seed=6)
     D = coo.num_features
     meta = DataMetaInfo.from_field_offsets(D, [0, 15])
-    from svbfm_tpu.learners.base import TASK_CLASSIFICATION
+    from svbfm.learners.base import TASK_CLASSIFICATION
     cfg = FMConfig(num_attributes=D, num_factor=2, task=TASK_CLASSIFICATION,
                    min_target=-1.0, max_target=1.0,
                    num_groups=meta.num_attr_groups, seed=7, num_batches=2)
@@ -111,7 +111,7 @@ def test_streaming_classification(tmp_path):
 def test_cli_deferred_binary_loading(tmp_path, monkeypatch, capsys):
     """vb_online with binary train input streams from disk (libfm.cpp:149-171
     deferred loading): the CLI never materializes the full train set."""
-    from svbfm_tpu import cli
+    from svbfm import cli
     coo = make_movielens_like(num_users=15, num_items=11, num_ratings=500,
                               rank=2, noise=0.4, seed=2)
     tr, te = train_test_split(coo, 0.2, seed=3)

@@ -1,10 +1,10 @@
 import numpy as np
 
-from svbfm_tpu.data.binary import save_sparse_binary
-from svbfm_tpu.data.libfm_text import COOData, save_libfm_text
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.relation import (RelationData, build_joined_meta,
-                                     join_relations, load_join)
+from svbfm.data.binary import save_sparse_binary
+from svbfm.data.libfm_text import COOData, save_libfm_text
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.relation import (RelationData, build_joined_meta,
+                                 join_relations, load_join)
 
 
 def _rel():
@@ -52,7 +52,7 @@ def test_relation_load_and_join_files(tmp_path):
 
 def test_cli_relation_end_to_end(tmp_path):
     import os
-    from svbfm_tpu.cli import main as cli_main
+    from svbfm.cli import main as cli_main
     rng = np.random.default_rng(0)
     n_users, n_items, n = 8, 3, 200
     users = rng.integers(0, n_users, n)

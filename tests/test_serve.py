@@ -1,4 +1,4 @@
-"""Serving path (svbfm_tpu.serve.BatchScorer).
+"""Serving path (svbfm.serve.BatchScorer).
 
 The reference serves one row at a time through fm_model::predict
 (fm_model.h:103-130); here a fixed-shape compiled program scores padded
@@ -8,16 +8,16 @@ batches.  These tests pin the scorer to the learners' own predict paths.
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import (FMConfig, TASK_CLASSIFICATION)
-from svbfm_tpu.parallel.mesh import make_mesh
-from svbfm_tpu.serve import BatchScorer
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import (FMConfig, TASK_CLASSIFICATION)
+from svbfm.parallel.mesh import make_mesh
+from svbfm.serve import BatchScorer
 
 
 def _trained(task=0):
-    from svbfm_tpu.learners.mcmc import ALSLearner
+    from svbfm.learners.mcmc import ALSLearner
     coo = make_movielens_like(num_users=40, num_items=25, num_ratings=1500,
                               rank=2, noise=0.3, seed=1)
     tr, te = train_test_split(coo, 0.2, seed=2)
@@ -58,7 +58,7 @@ def test_scorer_batching_and_inflight_window():
 
 
 def test_scorer_classification_probit():
-    from svbfm_tpu.learners.base import ref_cdf_gaussian
+    from svbfm.learners.base import ref_cdf_gaussian
     import jax.numpy as jnp
     l, state, cfg, te, D = _trained(task=TASK_CLASSIFICATION)
     scorer = BatchScorer.from_state(state, cfg, mesh=make_mesh(2))

@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig, TASK_CLASSIFICATION
-from svbfm_tpu.learners.sgd import SGDALearner, SGDLearner, SGDOnlineLearner
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig, TASK_CLASSIFICATION
+from svbfm.learners.sgd import SGDALearner, SGDLearner, SGDOnlineLearner
+from svbfm.parallel.mesh import make_mesh
 
 
 def _setup(num_rows=2000, num_users=30, num_items=25, K=4, n_dev=1, seed=3,
@@ -94,8 +94,8 @@ def test_sgda_steps_match_oracle():
     from functools import partial
     from jax.sharding import PartitionSpec as P
     from oracle import SGDAOracle
-    from svbfm_tpu.learners.sgd import sgd_minibatch_update, sgda_lambda_update
-    from svbfm_tpu.models.fm import init_fm_params
+    from svbfm.learners.sgd import sgd_minibatch_update, sgda_lambda_update
+    from svbfm.models.fm import init_fm_params
 
     coo = make_movielens_like(num_users=8, num_items=6, num_ratings=80,
                               rank=2, noise=0.4, seed=5)

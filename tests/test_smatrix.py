@@ -2,7 +2,7 @@
 
 import io
 
-from svbfm_tpu.utils.smatrix import (
+from svbfm.utils.smatrix import (
     SparseMatrix, SparseMatrixBoolean, SparseTensor, SparseTensorBoolean,
     SparseVector,
 )

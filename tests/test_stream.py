@@ -1,8 +1,8 @@
 import numpy as np
 
-from svbfm_tpu.data.binary import save_coo_binary
-from svbfm_tpu.data.stream import BinaryChunkReader, stream_chunks
-from svbfm_tpu.data.synth import make_tiny
+from svbfm.data.binary import save_coo_binary
+from svbfm.data.stream import BinaryChunkReader, stream_chunks
+from svbfm.data.synth import make_tiny
 
 
 def test_chunk_reader_roundtrip(tmp_path):
@@ -41,12 +41,12 @@ def test_stream_chunks_cover_all_rows(tmp_path):
 
 
 def test_sgd_online_streaming_from_file(tmp_path):
-    from svbfm_tpu.data.dataset import SparseDataset
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-    from svbfm_tpu.learners.base import FMConfig
-    from svbfm_tpu.learners.sgd import SGDOnlineLearner
-    from svbfm_tpu.parallel.mesh import make_mesh
+    from svbfm.data.dataset import SparseDataset
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.data.synth import make_movielens_like, train_test_split
+    from svbfm.learners.base import FMConfig
+    from svbfm.learners.sgd import SGDOnlineLearner
+    from svbfm.parallel.mesh import make_mesh
 
     coo = make_movielens_like(num_users=20, num_items=15, num_ratings=2000,
                               rank=2, noise=0.4, seed=5)

@@ -1,6 +1,6 @@
 """Native tooling tests: ctypes parser fast path, svbfm_convert /
 svbfm_transpose binaries, and byte-compatibility with the reference
-formats (via svbfm_tpu.data.binary, which implements the same layout)."""
+formats (via svbfm.data.binary, which implements the same layout)."""
 
 import os
 import subprocess
@@ -8,10 +8,10 @@ import subprocess
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.binary import (load_coo_binary, load_sparse_binary,
-                                   save_coo_binary)
-from svbfm_tpu.data.libfm_text import _load_native, load_libfm_text, save_libfm_text
-from svbfm_tpu.data.synth import make_tiny
+from svbfm.data.binary import (load_coo_binary, load_sparse_binary,
+                               save_coo_binary)
+from svbfm.data.libfm_text import _load_native, load_libfm_text, save_libfm_text
+from svbfm.data.synth import make_tiny
 
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "tools")

@@ -2,11 +2,11 @@
 import numpy as np
 import jax.numpy as jnp
 
-from svbfm_tpu.models.fm import init_fm_params
-from svbfm_tpu.ops.forward import fm_scores
-from svbfm_tpu.parallel.mesh import make_mesh
-from svbfm_tpu.parallel.tp import (make_tp_scorer, pad_feature_dim,
-                                   shard_params_by_feature)
+from svbfm.models.fm import init_fm_params
+from svbfm.ops.forward import fm_scores
+from svbfm.parallel.mesh import make_mesh
+from svbfm.parallel.tp import (make_tp_scorer, pad_feature_dim,
+                               shard_params_by_feature)
 
 
 def test_tp_scores_match_replicated():
@@ -31,10 +31,10 @@ def test_tp_scores_match_replicated():
 
 
 def _tp_train_setup(seed=2):
-    from svbfm_tpu.data.dataset import SparseDataset
-    from svbfm_tpu.data.meta import DataMetaInfo
-    from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-    from svbfm_tpu.learners.base import FMConfig
+    from svbfm.data.dataset import SparseDataset
+    from svbfm.data.meta import DataMetaInfo
+    from svbfm.data.synth import make_movielens_like, train_test_split
+    from svbfm.learners.base import FMConfig
     coo = make_movielens_like(num_users=20, num_items=14, num_ratings=700,
                               rank=2, noise=0.4, seed=seed)
     tr, te = train_test_split(coo, 0.2, seed=seed + 1)
@@ -51,10 +51,10 @@ def _tp_train_setup(seed=2):
 def test_tp_vb_training_matches_replicated():
     """Feature-sharded VB TRAINING: a (data=2, feature=4) mesh with V/w
     tables sharded over features reproduces the replicated fast-mode
-    VBLearner's trajectory (VERDICT item 3 / SURVEY TP row)."""
-    from svbfm_tpu.learners.vb import VBLearner
-    from svbfm_tpu.parallel.mesh import make_mesh2d
-    from svbfm_tpu.parallel.tp_vb import TPVBLearner
+    VBLearner's trajectory (SURVEY TP row)."""
+    from svbfm.learners.vb import VBLearner
+    from svbfm.parallel.mesh import make_mesh2d
+    from svbfm.parallel.tp_vb import TPVBLearner
     cfg, tr_ds, te_ds, meta, D = _tp_train_setup()
     l_rep = VBLearner(cfg, tr_ds, te_ds, meta, mesh=make_mesh(2),
                       write_files=False)
@@ -81,8 +81,8 @@ def test_tp_vb_training_matches_replicated():
 
 def test_tp_vb_feature_shard_invariance():
     """The TP trajectory is invariant to the (data, feature) factorization."""
-    from svbfm_tpu.parallel.mesh import make_mesh2d
-    from svbfm_tpu.parallel.tp_vb import TPVBLearner
+    from svbfm.parallel.mesh import make_mesh2d
+    from svbfm.parallel.tp_vb import TPVBLearner
     cfg, tr_ds, te_ds, meta, D = _tp_train_setup(seed=5)
     l_a = TPVBLearner(cfg, tr_ds, te_ds, meta,
                       mesh=make_mesh2d(n_data=4, n_feature=2))
@@ -120,12 +120,12 @@ def test_tp_budget_check_fails_loudly(monkeypatch):
     tiling (which TP does not implement) must fail at CONSTRUCTION with an
     informative error, not blow HBM at compile/run time."""
     import pytest
-    from svbfm_tpu.learners import vb as vbmod
-    from svbfm_tpu.parallel.mesh import make_mesh2d
-    from svbfm_tpu.parallel.tp_mcmc import TPMCMCLearner
-    from svbfm_tpu.parallel.tp_vb import TPVBLearner
+    from svbfm.learners import vb as vbmod
+    from svbfm.parallel.mesh import make_mesh2d
+    from svbfm.parallel.tp_mcmc import TPMCMCLearner
+    from svbfm.parallel.tp_vb import TPVBLearner
 
-    from svbfm_tpu.parallel import tp_vb as tpmod
+    from svbfm.parallel import tp_vb as tpmod
 
     cfg, tr_ds, te_ds, meta, D = _tp_train_setup()
     # shrink the capacity budgets so this small problem trips the same

@@ -4,13 +4,13 @@ invariance."""
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.mcmc import ALSLearner, MCMCLearner
-from svbfm_tpu.parallel.mesh import make_mesh, make_mesh2d
-from svbfm_tpu.parallel.tp_mcmc import TPALSLearner, TPMCMCLearner
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.mcmc import ALSLearner, MCMCLearner
+from svbfm.parallel.mesh import make_mesh, make_mesh2d
+from svbfm.parallel.tp_mcmc import TPALSLearner, TPMCMCLearner
 
 
 def _setup(seed=3, n=900):
@@ -103,8 +103,8 @@ def test_tp_vb_checkpoint_resume(tmp_path):
     """TPVBLearner checkpoints feature-sharded state and resumes with only
     the remaining iterations (CLI -checkpoint -feature_shards path)."""
     import os
-    from svbfm_tpu.parallel.tp_vb import TPVBLearner
-    from svbfm_tpu.utils.checkpoint import CheckpointManager
+    from svbfm.parallel.tp_vb import TPVBLearner
+    from svbfm.utils.checkpoint import CheckpointManager
     cfg, tr_ds, te_ds, meta, D = _setup(seed=21)
 
     def learner():
@@ -132,7 +132,7 @@ def test_tp_mcmc_checkpoint_resume(tmp_path):
     """TPMCMCLearner inherits bit-matching checkpoint/resume (incl. the
     posterior-mean accumulators) from MCMCLearner."""
     import os
-    from svbfm_tpu.utils.checkpoint import CheckpointManager
+    from svbfm.utils.checkpoint import CheckpointManager
     cfg, tr_ds, te_ds, meta, D = _setup(seed=23)
 
     def learner():

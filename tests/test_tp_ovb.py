@@ -6,13 +6,13 @@ only psum reassociation differs)."""
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.vb_online import OVBLearner
-from svbfm_tpu.parallel.mesh import make_mesh, make_mesh2d
-from svbfm_tpu.parallel.tp_ovb import TPOVBLearner
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.vb_online import OVBLearner
+from svbfm.parallel.mesh import make_mesh, make_mesh2d
+from svbfm.parallel.tp_ovb import TPOVBLearner
 
 
 def _setup(num_rows=900, num_users=18, num_items=14, K=3, num_batches=4):

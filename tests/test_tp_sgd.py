@@ -8,13 +8,13 @@ import dataclasses
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import TASK_CLASSIFICATION, TASK_REGRESSION, FMConfig
-from svbfm_tpu.learners.sgd import SGDLearner
-from svbfm_tpu.parallel.mesh import make_mesh, make_mesh2d
-from svbfm_tpu.parallel.tp_sgd import TPSGDLearner
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import TASK_CLASSIFICATION, TASK_REGRESSION, FMConfig
+from svbfm.learners.sgd import SGDLearner
+from svbfm.parallel.mesh import make_mesh, make_mesh2d
+from svbfm.parallel.tp_sgd import TPSGDLearner
 
 
 def _setup(num_rows=900, num_users=18, num_items=14, K=3,

@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from svbfm_tpu.data.dataset import SparseDataset
-from svbfm_tpu.data.meta import DataMetaInfo
-from svbfm_tpu.data.synth import make_movielens_like, train_test_split
-from svbfm_tpu.learners.base import FMConfig
-from svbfm_tpu.learners.vb_online import OVBLearner
-from svbfm_tpu.parallel.mesh import make_mesh
+from svbfm.data.dataset import SparseDataset
+from svbfm.data.meta import DataMetaInfo
+from svbfm.data.synth import make_movielens_like, train_test_split
+from svbfm.learners.base import FMConfig
+from svbfm.learners.vb_online import OVBLearner
+from svbfm.parallel.mesh import make_mesh
 
 from oracle import OVBOracle
 
@@ -87,7 +87,7 @@ def test_ovb_sharding_invariance():
 
 def test_ovb_classification():
     import numpy as np
-    from svbfm_tpu.learners.base import TASK_CLASSIFICATION
+    from svbfm.learners.base import TASK_CLASSIFICATION
     coo = make_movielens_like(num_users=25, num_items=20, num_ratings=2500,
                               rank=2, noise=0.4, seed=9)
     tr, te = train_test_split(coo, 0.2, seed=10)
@@ -142,7 +142,7 @@ def test_ovb_reshuffle_membership():
 def test_ovb_reshuffle_resume_matches(tmp_path):
     """Checkpoint resume replays the membership RNG so a resumed
     reshuffling run reproduces the uninterrupted one."""
-    from svbfm_tpu.utils.checkpoint import CheckpointManager
+    from svbfm.utils.checkpoint import CheckpointManager
 
     *_a, l_full = _setup(num_rows=1500, num_users=20, num_items=15, K=3,
                          num_batches=4, reshuffle=True)
@@ -170,7 +170,7 @@ def test_ovb_v_factor_matches_generic_block():
     import jax
     import jax.numpy as jnp
 
-    from svbfm_tpu.learners.vb_online import ovb_v_block, ovb_v_factor
+    from svbfm.learners.vb_online import ovb_v_block, ovb_v_factor
 
     tr, te, cfg, meta, learner = _setup(num_rows=400, num_users=17,
                                         num_items=13, K=1, factor_block=1)
@@ -239,7 +239,7 @@ def test_flat_dispatch_boundary(monkeypatch):
     threshold (both layouts produce identical trajectories — the
     equivalence tests above — so a mis-dispatch costs only performance,
     but the boundary itself must not drift silently)."""
-    from svbfm_tpu.learners.vb_online import (
+    from svbfm.learners.vb_online import (
         OVB_FLAT_THRESHOLD, _flat_overhead_estimate, _use_flat_dispatch)
 
     monkeypatch.delenv("SVBFM_OVB_FLAT", raising=False)

@@ -1,5 +1,5 @@
 /* Fast libFM text-format parser (ctypes fast path for
- * svbfm_tpu/data/libfm_text.py).
+ * svbfm/data/libfm_text.py).
  *
  * Behavior mirrors the reference two-pass loader
  * (/root/reference/src/libfm/src/Data.h:184-278): pass 1 counts rows, nnz
